@@ -3,7 +3,7 @@
 native C++ OpenMP radix sort vs numpy stable argsort vs on-device
 ``jax.lax.sort``, plus grouping throughput.
 
-Run: PYTHONPATH=/root/repo:$PYTHONPATH python benchmarks/sort_bench.py
+Run (from the repo root): PYTHONPATH=.:$PYTHONPATH python benchmarks/sort_bench.py
 """
 
 import time

@@ -3,7 +3,7 @@
 timed separately under block_until_ready, plus the fused end-to-end step
 (which is what production runs — XLA fuses away the stage boundaries).
 
-Run: PYTHONPATH=/root/repo:$PYTHONPATH python benchmarks/stage_breakdown.py
+Run (from the repo root): PYTHONPATH=.:$PYTHONPATH python benchmarks/stage_breakdown.py
 """
 
 import time
@@ -29,11 +29,13 @@ def main():
     from ros_gpu_depthmap_fusion_tpu.core.grid import VoxelGrid
     from ros_gpu_depthmap_fusion_tpu.core.camera import PinholeIntrinsics
     from ros_gpu_depthmap_fusion_tpu.ops.unproject import unproject_depthmaps
-    from ros_gpu_depthmap_fusion_tpu.ops.stencil import filter_flying_pixels
+    from ros_gpu_depthmap_fusion_tpu.ops.flying_pixels import (
+        filter_flying_pixels)
     from ros_gpu_depthmap_fusion_tpu.ops.mask_ops import crop_points, compact
     from ros_gpu_depthmap_fusion_tpu.ops.voxel import (
         scatter_occupancy, update_historic_occupancy, occupancy_to_u8)
-    from ros_gpu_depthmap_fusion_tpu.ops.voxelize import voxelize_average
+    from ros_gpu_depthmap_fusion_tpu.ops.voxelize import (
+        voxelize_average_packed)
     from ros_gpu_depthmap_fusion_tpu.pipeline.engine import (
         build_fusion_step, initial_state)
 
@@ -69,7 +71,7 @@ def main():
     cell = jax.jit(lambda p: grid.cell_index_clamped(p[:, :3]))
     ids = cell(pts)
     live = jnp.arange(n) < cnt
-    vox = jax.jit(lambda p, i, l: voxelize_average(
+    vox = jax.jit(lambda p, i, l: voxelize_average_packed(
         p, i, l, grid, min(grid.num_cells, n)))
     occ = jax.jit(lambda i, l: scatter_occupancy(i, l, grid.num_cells))
     fresh = occ(ids, live)
@@ -83,7 +85,7 @@ def main():
         ("crop", timeit(crop, pcr, m2)),
         ("mask (compact)", timeit(comp, pw, m3)),
         ("voxel_coords", timeit(cell, pts)),
-        ("voxelize (average)", timeit(vox, pts, ids, live)),
+        ("voxelize (packed average)", timeit(vox, pts, ids, live)),
         ("occupancy scatter", timeit(occ, ids, live)),
         ("occupancy decay+pack", timeit(dec, hist0, fresh)),
     ]

@@ -1,4 +1,4 @@
-"""Drive the public package API end-to-end on the real TPU chip:
+"""Drive the public package API end-to-end on the default JAX device:
 synthetic 640x480 depth -> unproject -> flying-pixel filter -> crop ->
 compact -> voxel occupancy -> occupied cell centers."""
 import time

@@ -1,10 +1,10 @@
 """Multi-host (multi-process) sharded fusion runner.
 
 Each process owns ``--devices-per-process`` devices (virtual CPU devices
-here; TPU hosts in production) and joins a ``jax.distributed`` cluster;
-the ``(stream, space)`` mesh then spans every device of every process, so
-the exact same :class:`ShardedFusionEngine` program runs with collectives
-riding DCN across processes (SURVEY.md §2.7/§5 "distributed communication
+here; one GPU per process in production) and joins a ``jax.distributed``
+cluster; the ``(stream, space)`` mesh then spans every device of every
+process, so the exact same :class:`ShardedFusionEngine` program runs with
+collectives crossing processes (SURVEY.md §2.7/§5 "distributed communication
 backend"; BASELINE.md multi-host scaling row). The reference has no
 multi-machine story at all — its inter-process transport is ROS TCP
 pub/sub of *inputs*, never distributed compute.

@@ -1,4 +1,4 @@
-// fusionhost: native host-side runtime for the TPU fusion framework.
+// fusionhost: native host-side runtime for the JAX fusion framework.
 //
 // C++ equivalents of the reference's host/CPU components (the engine's
 // GPU-side work lives in XLA/Pallas; this library covers what the
@@ -864,10 +864,9 @@ int32_t fh_segment_grid(const uint8_t* occ, int32_t Z, int32_t H, int32_t W,
 //    fits the exception budget (the decoder compiles one jit variant per
 //    allowed width). B=17 never overflows (max zigzag(+-65535) = 2^17-2).
 //
-// Rationale: the host->device link is the fusion engine's bottleneck at
-// multi-camera scale; smooth depth compresses to ~3-5 bits/px, and the
-// decoder is pure vectorized bit math + one row cumsum (TPU-friendly,
-// static shapes per B).
+// Rationale: smooth depth compresses to ~3-5 bits/px, shrinking the
+// host->device upload, and the decoder is pure vectorized bit math + one
+// row cumsum (static shapes per B).
 // ---------------------------------------------------------------------------
 
 static inline uint32_t fh_zigzag(int32_t d) {

@@ -1,17 +1,17 @@
-"""TPU-native depth-map + lidar fusion and mapping engine.
+"""Accelerator-native depth-map + lidar fusion and mapping engine.
 
 A from-scratch re-design of the capabilities of ``xaedes/ros_gpu_depthmap_fusion``
-(reference: C++11 + OpenGL 4.3 compute shaders, single GPU, ROS1) for TPU
-hardware: JAX/XLA for the fused per-frame compute graph, Pallas for the hot
-stencil/scatter kernels, ``jax.sharding`` + ``shard_map`` for multi-chip /
-multi-host scaling, and a small C++ native host runtime for input staging.
+(reference: C++11 + OpenGL 4.3 compute shaders, single GPU, ROS1) in JAX:
+JAX/XLA for the fused per-frame compute graph (it runs on an NVIDIA H100),
+``jax.sharding`` + ``shard_map`` for multi-GPU scaling, and a small C++
+native host runtime for input staging, encoding and segmentation.
 
 Top-level layout (mirrors the reference's layer map, SURVEY.md §1):
 
 - :mod:`~ros_gpu_depthmap_fusion_tpu.core`     — grid geometry, camera models,
   SE(3) transforms, timestamps, config (reference L5 ``grid_meta.h`` et al).
 - :mod:`~ros_gpu_depthmap_fusion_tpu.ops`      — the device op set: one JAX/XLA
-  (or Pallas) op per GLSL compute kernel family (reference L3/L4).
+  op per GLSL compute kernel family (reference L3/L4).
 - :mod:`~ros_gpu_depthmap_fusion_tpu.state`    — functional state containers:
   rolling point buffer, historic voxel occupancy (reference L2 SSBO state).
 - :mod:`~ros_gpu_depthmap_fusion_tpu.pipeline` — the fused per-frame step and

@@ -3,14 +3,17 @@
 One dataclass with the same semantic fields (and defaults) as the reference's
 ROS parameter set (``src/gpu_depthmap_fusion_component.cpp:1115-1187``) plus
 the launch-file operating points (``launch/gpu_depthmap_fusion.launch``), and
-the TPU-specific capacity/sharding knobs that replace the reference's
-dynamically grown SSBOs (static XLA shapes require explicit capacities).
+the capacity/sharding knobs that replace the reference's dynamically grown
+SSBOs (static XLA shapes require explicit capacities).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Tuple
+
+
+VOXEL_MEAN_MODES = ("auto", "packed", "exact")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,8 +37,8 @@ class FusionConfig:
     # per-stream (height, width); None = all streams share
     # (depth_height, depth_width). Streams with equal shapes are processed
     # as one batched group; distinct shapes become separate static groups
-    # whose (cell, partial-sum) rows join at the voxelize partials merge
-    # (exact — integer partial sums commute).
+    # whose points are concatenated before voxelize (exact — integer
+    # partial sums commute, so section order cannot change results).
     stream_shapes: "Tuple[Tuple[int, int], ...] | None" = None
     # per-stream depth unit -> meters; None = all streams use depth_scale
     depth_scales: "Tuple[float, ...] | None" = None
@@ -73,37 +76,26 @@ class FusionConfig:
     voxel_size: Tuple[float, float, float] = (0.1, 0.1, 0.1)
     voxel_enable_average: bool = True   # average-mode vs occupied-cell-centers
     # Average-mode implementation:
-    # - "rle": raster RLE pre-reduction (Pallas) + small sort — exploits
-    #   image coherence, ~3.5x faster than "packed" on TPU at the 8-cam
-    #   operating point; same 10/10/12 cell-relative quantization and
-    #   BIT-IDENTICAL results to "packed" (integer partial sums commute).
     # - "packed": per-cell means via a 2-operand full-capacity sort with
     #   cell-relative 10/10/12-bit quantized coordinates (error <=
     #   cell/2048 per axis, ~0.05 mm at deployment grids).
     # - "exact": bit-exact f32 means via a 4-operand sort.
-    # - "auto" (default): "rle" on TPU backends (grids < 2^24 cells),
-    #   "packed" elsewhere.
+    # - "auto" (default): "packed".
     voxel_mean_mode: str = "auto"
-    # static cap on intermediate (cell, partial-sum) rows in "rle" mode
-    # (0 -> N//4); overflowing partials are dropped — a pathological scene
-    # with zero raster coherence needs this raised toward N
-    voxelize_partials_capacity: int = 0
     voxel_occupancy_lifetime: int = 1   # frames; launch default 10
     # static cap on emitted voxelized points (= max simultaneously occupied
     # cells; overflow drops cells and caps the count — explicit policy
     # where the reference grew buffers silently). 256k cells is ~8% of the
-    # largest deployment grid. PERF: the occupancy scatter-max and output
-    # compaction scale with this CAP, not the live cell count (each
-    # halving saved ~0.5-1 ms/frame at the bench operating point,
-    # benchmarks/r4_outcap_probe.py) — size it to the deployment's
-    # measured occupancy with headroom; FrameOutputs.fused_count vs this
-    # cap is the overflow observable.
+    # largest deployment grid. The occupancy scatter-max and output
+    # compaction scale with this CAP, not the live cell count, so size it
+    # to the deployment's occupancy with headroom;
+    # FrameOutputs.fused_count vs this cap is the overflow observable.
     voxelize_output_capacity: int = 262144
 
     # --- host->device depth link ---
     # "dpcm" (default): lossless masked row-DPCM compression of the depth
-    # upload, decoded on device (ops/depth_codec.py) — the link is the
-    # multi-camera bottleneck. "dpcm_temporal": adds P-frames coding
+    # upload, decoded on device (ops/depth_codec.py). "dpcm_temporal":
+    # adds P-frames coding
     # zigzag(curr_q - prev_q) against the previous frame (kept on device
     # in EngineState) with automatic I-frame fallback when residuals or
     # hole churn blow the exception budget, and periodic I keyframes for
@@ -118,7 +110,8 @@ class FusionConfig:
     # spills ride the exception list; automatic I fallback on exception
     # overflow). On realistic 30 Hz streams (static background + fixed
     # pattern noise) this codes ~1 bit/px instead of the fixed >= 2;
-    # decode is gather-free (one-hot MXU matvec — ops/depth_codec.py).
+    # decode looks each group's literal up with an exact integer gather
+    # (ops/depth_codec.py).
     # L must be a multiple of 4. 0 = classic fixed-width P-frames.
     depth_codec_p4_budget: int = 0
     # hysteresis quantization for p4 (raw depth units): a valid pixel
@@ -145,11 +138,12 @@ class FusionConfig:
     # one u16/point (vs 3 u16), per-sequence raw first points, wider
     # deltas on a small exception list — 3x fewer lidar link bytes,
     # BIT-EXACT vs plain u16 staging (lossless in the quantized series).
-    # Decode is gather-free: shift-unpack, exception scatter, two-level
-    # MXU cumsum, per-sequence rebase via a [stage_cap, seq_cap] one-hot
-    # matvec. Sequences whose deltas overflow the exception budget are
-    # TRUNCATED at the first uncovered point (explicit drop policy like
-    # the stage-capacity drop; HostPacket.lidar_dropped counts them).
+    # Decode: shift-unpack, exception scatter, two-level cumsum,
+    # per-sequence rebase via a [stage_cap, seq_cap] one-hot matvec at
+    # HIGHEST precision. Sequences whose deltas overflow the exception
+    # budget are TRUNCATED at the first uncovered point (explicit drop
+    # policy like the stage-capacity drop; HostPacket.lidar_dropped
+    # counts them).
     lidar_link_delta: bool = False
 
     # also emit the compacted raw (pre-voxelize) cloud every frame. The
@@ -179,9 +173,8 @@ class FusionConfig:
     # emit the dense [num_cells] u8 historic occupancy in FrameOutputs
     # (reference uints_to_chars download payload). The mapping consumers
     # use the packed bitmap / sparse words instead; disabling this saves
-    # one full-grid u8 materialization per frame (~1 ms HBM traffic at
-    # the 3.4M-cell deployment grid). FrameOutputs.occupancy_u8 is a
-    # [1]-stub when off.
+    # one full-grid u8 materialization per frame.
+    # FrameOutputs.occupancy_u8 is a [1]-stub when off.
     emit_occupancy_u8: bool = True
     # sparse occupancy output for the mapping d2h: the fused step emits
     # the NONZERO 128-bit BLOCKS (4 u32 words) of the packed occupancy
@@ -200,7 +193,7 @@ class FusionConfig:
     radius_min: Tuple[float, float, float] = (-1.0, -1.0, -1.0)
     radius_max: Tuple[float, float, float] = (+1.0, +1.0, +1.0)
 
-    # --- TPU capacities (replace the reference's grow-only SSBO resizing;
+    # --- capacities (replace the reference's grow-only SSBO resizing;
     # XLA needs static shapes, overflow is explicit: excess points dropped
     # with their mask cleared) ---
     rollbuffer_point_capacity: int = 131072   # ref practical cap ~100k pts
@@ -212,6 +205,12 @@ class FusionConfig:
     dtype: str = "float32"              # compute dtype for point math
 
     # ------------------------------------------------------------------
+    def __post_init__(self):
+        if self.voxel_mean_mode not in VOXEL_MEAN_MODES:
+            raise ValueError(
+                f"voxel_mean_mode={self.voxel_mean_mode!r} is not one of "
+                f"{VOXEL_MEAN_MODES}")
+
     @property
     def depth_pixels_per_stream(self) -> int:
         return self.depth_height * self.depth_width

@@ -1,6 +1,6 @@
 """Voxel-grid geometry.
 
-TPU-native re-expression of the reference ``GridMeta`` descriptor
+Device-side re-expression of the reference ``GridMeta`` descriptor
 (``include/gpu_depthmap_fusion/grid_meta.h:17-169``): bounds + cell size
 define a static integer grid; conversions between world coordinates, integer
 grid coordinates and linear cell indices.

@@ -2,7 +2,7 @@
 
 The reference stores per-sequence timestamps as two u32s and compares them
 lexicographically (``shader/rollbuffer_count_discarded_points.glsl:49-56``,
-``compareTime`` in the engine). On TPU we encode both into one int64
+``compareTime`` in the engine). On the host we encode both into one int64
 nanosecond count so expiry/selection become single ``searchsorted`` calls
 over a sorted-by-time sequence table.
 """

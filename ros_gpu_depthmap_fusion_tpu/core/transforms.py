@@ -28,9 +28,9 @@ def identity(dtype=jnp.float32) -> jnp.ndarray:
 def transform_points(points: jnp.ndarray, tf: jnp.ndarray) -> jnp.ndarray:
     """Apply one 4x4 transform to ``[..., 4]`` homogeneous points.
 
-    Lowered by XLA to a single MXU matmul for batched point sets. Full fp32
-    precision: geometric transforms are parity-critical and a K=4 matmul is
-    bandwidth-bound, so the higher MXU precision is free.
+    Full fp32 precision (HIGHEST, never TF32): geometric transforms are
+    parity-critical and a K=4 matmul is bandwidth-bound, so the precision
+    is free.
     """
     return jnp.matmul(points, tf.T, precision=jax.lax.Precision.HIGHEST)
 

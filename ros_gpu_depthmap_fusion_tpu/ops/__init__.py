@@ -3,10 +3,11 @@
 One module per reference GLSL-kernel family (SURVEY.md §2.3):
 
 ==============================  ==============================================
-reference kernel                TPU op
+reference kernel                device op
 ==============================  ==============================================
 convert_depthmap_to_points      :mod:`.unproject`
-filter_flying_pixels            :mod:`.stencil` (2-D)
+filter_flying_pixels            :mod:`.stencil` (2-D reference);
+                                :mod:`.flying_pixels` (Triton kernel on CUDA)
 filter_point_sequence           :mod:`.stencil` (1-D)
 crop_points                     :mod:`.mask_ops.crop_points`
 apply_point_mask                :mod:`.mask_ops.compact` (deterministic)

@@ -4,15 +4,13 @@
   crop frame, ANDed into the validity mask.
 - :func:`compact` — replaces ``shader/apply_point_mask.glsl``'s atomic-counter
   compaction (glsl:50-54, output order nondeterministic) with a
-  deterministic, *stable* TPU idiom: one ``lax.sort`` on the inverted mask
+  deterministic, *stable* device idiom: one ``lax.sort`` on the inverted mask
   carrying the payload columns. Valid points keep their input order; the
   valid count replaces the reference's scratchpad readback
   (gpu_depthmap_fusion.cpp:1675-1677) and stays on device.
 
-  Why sort instead of ``cumsum -> scatter``: XLA:TPU lowers large scatters
-  with dynamic indices to a serialized loop (~145 ms for 2.5M x 4 f32 on
-  v5e), while its bitonic ``lax.sort`` is fully vectorized (~8 ms for 2.5M
-  pairs). A stable sort on key ``!mask`` IS stream compaction.
+  A stable sort on key ``!mask`` IS stream compaction, and its output is
+  the same on every backend.
 """
 
 from __future__ import annotations

@@ -11,7 +11,7 @@ Parity ops for the reference's SSBO layout converters (§2.3 of SURVEY.md):
   reference engine) are the trivial reshapes :func:`xyz_to_homogeneous` /
   ``points[..., :3]`` and are not given dedicated ops.
 
-On TPU these only matter at host I/O boundaries; inside the fused pipeline
+These only matter at host I/O boundaries; inside the fused pipeline
 data stays unpacked.
 """
 

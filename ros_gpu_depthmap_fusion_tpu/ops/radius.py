@@ -3,7 +3,7 @@
 The reference exposes the full parameter set for a radius filter
 (``radius_filter_*`` params, enable flag) but never implemented the filter
 itself — call sites are commented out (``_component.cpp:414-421``,
-SURVEY.md §2.9). This provides the capability, TPU-style: a density test
+SURVEY.md §2.9). This provides the capability with static shapes: a density test
 on a uniform grid with cell size = radius. A point survives when the
 population of its own cell plus its 26 neighbor cells reaches
 ``min_neighbors`` — a standard O(N) approximation of the exact

@@ -1,6 +1,6 @@
 """Validity-mask stencil filters.
 
-TPU-native equivalents of the two neighborhood filters:
+Device equivalents of the two neighborhood filters:
 
 - :func:`filter_flying_pixels` — ``shader/filter_flying_pixels.glsl``: per
   depth pixel, estimate the local surface normal from ring neighbors and

@@ -1,6 +1,6 @@
 """Depth-map unprojection.
 
-TPU-native equivalent of ``shader/convert_depthmap_to_points.glsl`` (the
+Device equivalent of ``shader/convert_depthmap_to_points.glsl`` (the
 ``compute_convert_depthmap_to_points`` kernel): unproject u16 depth through
 pinhole intrinsics to camera-frame points and simultaneously produce
 world-frame and crop-frame copies plus the validity mask (zero depth ->
@@ -11,8 +11,8 @@ Differences from the reference, by design:
   of u32-packed depth pairs (the u32 packing was an SSBO-layout artifact;
   pack/unpack parity ops live in :mod:`ops.pack`).
 - The three outputs (camera/world/crop) are produced by one fused expression;
-  the two 4x4 transforms lower onto the MXU as ``[C*H*W, 4] @ [4, 4]``
-  matmuls, and XLA fuses the unprojection arithmetic into them.
+  the two 4x4 transforms are ``[C*H*W, 4] @ [4, 4]`` matmuls at HIGHEST
+  precision (no TF32 rounding of coordinates).
 """
 
 from __future__ import annotations
@@ -80,7 +80,7 @@ def unproject_depthmaps(depth_u16: jnp.ndarray,
     points_cam = jnp.stack([x, y, z, ones], axis=-1)    # [C, HW, 4]
     points_cam = jnp.where(mask[..., None], points_cam, 0.0)
 
-    # one batched MXU matmul per output frame; masked rows stay zero because
+    # one batched matmul per output frame; masked rows stay zero because
     # a zero homogeneous point maps to zero under  points @ T^T
     points_world = jnp.einsum("chw,cvw->chv", points_cam, tf_world,
                               precision=jax.lax.Precision.HIGHEST)

@@ -3,8 +3,8 @@
 The reference's biggest structural weakness is here: it downloads ~2.4M
 point cell-ids to the host, radix-sorts + groups them on CPU with OpenMP
 (``voxelize.h:74-105``, ``radix_sort.h``, ``radix_grouper.h``) and averages
-per-cell members, every frame. The TPU design keeps the whole stage on
-device as segment reductions over the dense grid:
+per-cell members, every frame. This design keeps the whole stage on
+device as sort-and-segment reductions:
 
 - average mode (``averageGridCells``, voxelize.h:9-48): scatter-add point
   coordinates + counts over cells, then compact occupied cells -> per-cell
@@ -55,12 +55,10 @@ def voxelize_average(points: jnp.ndarray,
         construction. Cells are emitted in ascending cell-index order (the
         order the reference's radix grouper produces).
 
-    Implementation: sort-and-segment rather than dense scatter-add — on
-    XLA:TPU a 2.5M-row scatter-add into a 3.4M x 4 grid lowers to a
-    serialized loop (~165 ms on v5e) while ``lax.sort`` + log-doubling
-    segmented sums run vectorized (~30 ms). This is the on-device
-    re-expression of the reference's CPU radix sort -> group -> average
-    (voxelize.h:9-48), with pairwise-accumulation precision as a bonus.
+    Implementation: ``lax.sort`` + log-doubling segmented sums — the
+    on-device re-expression of the reference's CPU radix sort -> group ->
+    average (voxelize.h:9-48). Summation order is fixed by the sort, so
+    the result is deterministic (a float scatter-add is not).
     """
     num_cells = grid.num_cells
     n = mask.shape[0]
@@ -91,8 +89,7 @@ def voxelize_average(points: jnp.ndarray,
     out_points = jnp.concatenate([out_means, w_col[:, None]], axis=-1)
     if return_occupancy:
         # scatter only the compacted unique cells (<= capacity update
-        # slots), not all N points — scatter cost on TPU scales with the
-        # number of update slots
+        # slots), not all N points
         target = jnp.where(w_col > 0, out_cells, sentinel)
         occ = jnp.zeros((num_cells,), jnp.int32)
         occ = occ.at[target].max(1, mode="drop")
@@ -109,9 +106,8 @@ def voxelize_average_packed(points: jnp.ndarray,
     """Mean point per occupied cell with a PACKED sort payload.
 
     The exact path (:func:`voxelize_average`) sorts 4 operands
-    (key, x, y, z); on TPU ``lax.sort`` is a bitonic network whose cost
-    scales with operand bytes (measured v5e, 3.4M rows: 4-op 19.0 ms vs
-    2-op 14.2 ms). Here each point's coordinates are quantized RELATIVE TO
+    (key, x, y, z), and a sort's cost grows with its operand bytes. Here
+    each point's coordinates are quantized RELATIVE TO
     ITS CELL CORNER into one u32 (10/10/12 bits -> half-step error of at
     most cell_size/2048 in x/y and /8192 in z, ~0.05 mm at the 0.1 m
     deployment grids — an order below depth-sensor noise), so the sort
@@ -123,8 +119,8 @@ def voxelize_average_packed(points: jnp.ndarray,
     box larger than the voxel box, or crop frame != world frame) have
     out-of-cell fractions and are clamped to the cell; interior points are
     within the stated bound. The engine selects this path via
-    ``FusionConfig.voxel_mean_mode = "packed"`` (the default) and the
-    exact path via ``"exact"``.
+    ``FusionConfig.voxel_mean_mode = "packed"`` (or ``"auto"``, the
+    default) and the exact path via ``"exact"``.
     """
     num_cells = grid.num_cells
     n = mask.shape[0]
@@ -176,242 +172,6 @@ def voxelize_average_packed(points: jnp.ndarray,
         occ = occ.at[target].max(1, mode="drop")
         return out_points, count, occ
     return out_points, count
-
-
-def _pack_partials(ps: jnp.ndarray):
-    """Pack run-partial rows ``[N, 4]`` (qx, qy, qz, count — exact f32
-    integers bounded by a 128-long run of 10/10/12-bit coords: qx, qy <
-    2^17, qz < 2^20, count <= 2^7) into two u32 words for a narrow sort:
-
-        w0 = qx (17) | qz_lo15 << 17
-        w1 = qy (17) | qz_hi5 << 17 | count << 22
-    """
-    xi = ps[:, 0].astype(jnp.uint32)
-    yi = ps[:, 1].astype(jnp.uint32)
-    zi = ps[:, 2].astype(jnp.uint32)
-    ci = ps[:, 3].astype(jnp.uint32)
-    w0 = xi | ((zi & jnp.uint32(0x7FFF)) << jnp.uint32(17))
-    w1 = (yi | ((zi >> jnp.uint32(15)) << jnp.uint32(17))
-          | (ci << jnp.uint32(22)))
-    return w0, w1
-
-
-def _unpack_partials(w0: jnp.ndarray, w1: jnp.ndarray) -> jnp.ndarray:
-    """Inverse of :func:`_pack_partials` -> ``[N, 4]`` f32 planes."""
-    m17 = jnp.uint32((1 << 17) - 1)
-    xi = w0 & m17
-    yi = w1 & m17
-    zi = ((w0 >> jnp.uint32(17))
-          | (((w1 >> jnp.uint32(17)) & jnp.uint32(0x1F))
-             << jnp.uint32(15)))
-    ci = w1 >> jnp.uint32(22)
-    return jnp.stack([xi, yi, zi, ci], axis=-1).astype(jnp.float32)
-
-
-def _quantize_cell_relative(points, cell_indices, grid, bits=(10, 10, 12)):
-    """Coordinates quantized relative to their cell corner (the packed
-    path's 10/10/12 scheme — error <= cell/2048 per axis in x/y, /8192 in
-    z), returned as exact small-integer f32 columns ``[N, 3]``."""
-    corner = grid.world_coord_of_coord(
-        grid.grid_coord_of_index(cell_indices), dtype=points.dtype)
-    cs = jnp.asarray(grid.cell_size, points.dtype)
-    qs = []
-    for a, b in enumerate(bits):
-        scale = jnp.asarray(1 << b, points.dtype)
-        f = (points[:, a] - corner[:, a]) / cs[a]
-        qs.append(jnp.clip(jnp.floor(f * scale), 0, (1 << b) - 1))
-    return jnp.stack(qs, axis=-1), bits
-
-
-def voxelize_average_rle(points: jnp.ndarray,
-                         cell_indices: jnp.ndarray,
-                         mask: jnp.ndarray,
-                         grid: VoxelGrid,
-                         capacity: int,
-                         return_occupancy: bool = False,
-                         partials_capacity: int = 0,
-                         interpret: bool = False,
-                         return_partials_count: bool = False,
-                         extra_points: jnp.ndarray | None = None,
-                         extra_cell_indices: jnp.ndarray | None = None,
-                         extra_mask: jnp.ndarray | None = None):
-    """Mean point per occupied cell via raster RLE pre-reduction (TPU).
-
-    Same quantization (and bit-identical results — all accumulated values
-    are exact small integers in f32, so summation order is irrelevant) as
-    :func:`voxelize_average_packed`, but instead of sorting the full point
-    capacity, it exploits image coherence: a single Pallas pass
-    (:func:`..pallas.segreduce.rle_reduce_pallas`) collapses runs of
-    raster-consecutive points that share a cell into (cell, partial-sum)
-    rows — typically a ~10x reduction at depth-camera operating points —
-    then sorts only the partials and reduces them with a second pass of
-    the same kernel. Replaces the reference's CPU radix sort + grouper +
-    ``averageGridCells`` (voxelize.h:9-48) like the other modes, but at a
-    fraction of the device cost of the full-capacity sort.
-
-    ``partials_capacity`` bounds the intermediate rows (0 -> N//4,
-    min 64k); overflowing partials are dropped (explicit policy, like
-    every other capacity in this engine — a pathological scene with zero
-    raster coherence would need ``partials_capacity=N``). Overflow is
-    OBSERVABLE: with ``return_partials_count=True`` the true (unclamped)
-    level-1 run count is appended to the returned tuple; a value above
-    ``partials_capacity`` means partial rows were dropped and the caller
-    should raise the capacity (or fall back to ``packed``). The engine
-    surfaces it as ``FrameOutputs.vox_partials_count``.
-
-    Bit-exactness vs ``packed``: level-1 partial sums are ALWAYS exact
-    (force_break=128 bounds each run to 128 members), so the bound sits
-    at the level-2 per-cell totals: exact while z-sum <= 4095 * members
-    stays below 2^24, i.e. ~4096 members/cell (pinned by
-    tests/test_ops_voxel.py::test_voxelize_dense_cell_exactness_bound —
-    a 3000-member cell is bit-identical, a 12000-member cell agrees to
-    float precision).
-
-    ``extra_*``: additional point rows WITHOUT raster coherence (the
-    engine's rollbuffer/lidar selection). They skip the level-1 raster
-    pre-reduction — which would find no runs in them — and join at the
-    partials sort as single-point rows, so the big elementwise front of
-    the pipeline runs over the depth domain only. Exact: level-2 sums are
-    integer-commutative, so merging at the partial level reproduces the
-    concatenated-input result.
-    """
-    return voxelize_average_rle_domains(
-        [(points, cell_indices, mask)], grid, capacity,
-        return_occupancy=return_occupancy,
-        partials_capacity=partials_capacity, interpret=interpret,
-        return_partials_count=return_partials_count,
-        extra_points=extra_points, extra_cell_indices=extra_cell_indices,
-        extra_mask=extra_mask)
-
-
-def voxelize_average_rle_domains(domains,
-                                 grid: VoxelGrid,
-                                 capacity: int,
-                                 return_occupancy: bool = False,
-                                 partials_capacity: int = 0,
-                                 interpret: bool = False,
-                                 return_partials_count: bool = False,
-                                 extra_points: jnp.ndarray | None = None,
-                                 extra_cell_indices=None,
-                                 extra_mask=None):
-    """:func:`voxelize_average_rle` over MULTIPLE raster-coherent domains.
-
-    ``domains`` is a sequence of ``(points [N_i, 4], cell_indices [N_i],
-    mask [N_i])`` sections — one per depth-stream resolution group of a
-    heterogeneous rig (reference per-map cols/rows dispatch,
-    gpu_depthmap_fusion.cpp:1612-1642). Each domain gets its own level-1
-    raster pre-reduction with a pixel-proportional share of
-    ``partials_capacity``; all partials (plus the raster-incoherent
-    ``extra_*`` rows) join at the partials sort. Exact: integer partial
-    sums commute, so any domain split reproduces the concatenated-input
-    result bit-for-bit.
-
-    Overflow observable: the reported partials count is the MAX over
-    domains of the true run count scaled to the full capacity
-    (``l1t_d * partials_capacity / cap_d``), so the caller's single
-    comparison ``count > partials_capacity`` is sound per domain — a
-    skewed domain that overflows its own share reports above capacity
-    even when the summed true count would not (and a heterogeneous rig
-    whose ``max(1 << 12, …)`` share floors sum above the configured
-    capacity can no longer mask a non-overflowing run as an overflow).
-    """
-    from ros_gpu_depthmap_fusion_tpu.ops.pallas.segreduce import (
-        rle_reduce_pallas)
-    num_cells = grid.num_cells
-    assert num_cells < (1 << 24), ("rle voxelize rides cell ids as exact "
-                                   "f32; use packed/exact above 2^24 cells")
-    n_total = sum(int(m.shape[0]) for _, _, m in domains)
-    if partials_capacity <= 0:
-        partials_capacity = max(1 << 16, n_total // 4)
-    partials_capacity = min(partials_capacity, n_total)
-    sentinel = num_cells
-
-    pks, pss = [], []
-    l1_true = jnp.int32(0)
-    bits = (10, 10, 12)
-    for points, cell_indices, mask in domains:
-        n = int(mask.shape[0])
-        cap_d = (partials_capacity if len(domains) == 1
-                 else min(max(1 << 12, partials_capacity * n // n_total), n))
-        key = jnp.where(mask, cell_indices.astype(jnp.int32),
-                        jnp.int32(sentinel))
-        q, bits = _quantize_cell_relative(points, cell_indices, grid)
-        vals = jnp.concatenate(
-            [jnp.where(mask[:, None], q, 0.0),
-             mask.astype(points.dtype)[:, None]], axis=-1)
-        # level 1: raster-order run reduction (true counts sum into the
-        # overflow detector). bn=4096 measured fastest at the 3.26M-pixel
-        # operating point (benchmarks/r4_l1_bn.py: 8.4 vs 9.5 ms at 8192 —
-        # emission-dot staging scales with bn; level 2 keeps the default).
-        # force_break=128 bounds run length so the partial sums fit the
-        # 2-word packing below (qx/qy sums < 2^17, qz < 2^20, count <=
-        # 2^7); splitting long runs only adds rows that level 2 re-merges
-        # exactly.
-        pk, ps, _, l1t = rle_reduce_pallas(key, vals, cap_d, sentinel,
-                                           interpret=interpret, bn=4096,
-                                           force_break=128)
-        pks.append(pk)
-        pss.append(_pack_partials(ps))
-        # overflow observable: scale this domain's true count to the full
-        # capacity so `reported > partials_capacity` <=> `l1t > cap_d`
-        # (per-domain share overflow) — see docstring. f32 is exact
-        # enough for a diagnostic; the product is bounded by
-        # max(partials_capacity, n_total) so it fits int32.
-        scale = float(partials_capacity) / float(cap_d)
-        l1_true = jnp.maximum(
-            l1_true,
-            jnp.ceil(l1t.astype(jnp.float32) * scale).astype(jnp.int32))
-    if extra_points is not None:
-        ekey = jnp.where(extra_mask,
-                         extra_cell_indices.astype(jnp.int32),
-                         jnp.int32(sentinel))
-        eq, _ = _quantize_cell_relative(extra_points, extra_cell_indices,
-                                        grid)
-        evals = jnp.concatenate(
-            [jnp.where(extra_mask[:, None], eq, 0.0),
-             extra_mask.astype(extra_points.dtype)[:, None]], axis=-1)
-        pks.append(ekey)
-        pss.append(_pack_partials(evals))
-    pk = pks[0] if len(pks) == 1 else jnp.concatenate(pks)
-    pw0 = (pss[0][0] if len(pss) == 1
-           else jnp.concatenate([p[0] for p in pss]))
-    pw1 = (pss[0][1] if len(pss) == 1
-           else jnp.concatenate([p[1] for p in pss]))
-    points = domains[0][0]  # dtype carrier for the reconstruction below
-    # group the partials: the sort carries the packed 2-word sums instead
-    # of 4 f32 planes (operand bytes drive lax.sort's bitonic cost —
-    # 3-op vs 5-op), then the same kernel reduces the sorted runs
-    sk, s0, s1 = jax.lax.sort((pk, pw0, pw1), num_keys=1)
-    cells, sums, count, _ = rle_reduce_pallas(
-        sk, _unpack_partials(s0, s1), capacity, sentinel,
-        interpret=interpret)
-
-    count = jnp.minimum(count, jnp.int32(capacity))
-    live = jnp.arange(capacity, dtype=jnp.int32) < count
-    safe_cells = jnp.where(live, cells, 0)
-    mean_q = sums[:, :3] / jnp.maximum(sums[:, 3:4], 1.0)
-    out_corner = grid.world_coord_of_coord(
-        grid.grid_coord_of_index(safe_cells), dtype=points.dtype)
-    cs = jnp.asarray(grid.cell_size, points.dtype)
-    inv_scale = cs / jnp.asarray([float(1 << b) for b in bits],
-                                 points.dtype)
-    w_col = live.astype(points.dtype)
-    out_means = (out_corner + (mean_q + 0.5) * inv_scale) * w_col[:, None]
-    out_points = jnp.concatenate([out_means, w_col[:, None]], axis=-1)
-    ret = (out_points, count)
-    if return_occupancy == "cells":
-        # hand back the compacted (cell, live) pair instead of scattering
-        # a dense grid here — the engine folds the scatter directly into
-        # the historic-decay update (one full-grid pass saved)
-        ret = ret + ((safe_cells, live),)
-    elif return_occupancy:
-        target = jnp.where(live, safe_cells, jnp.int32(sentinel))
-        occ = jnp.zeros((num_cells,), jnp.int32)
-        occ = occ.at[target].max(1, mode="drop")
-        ret = ret + (occ,)
-    if return_partials_count:
-        ret = ret + (l1_true,)
-    return ret
 
 
 def voxelize_partial_sums(points: jnp.ndarray,

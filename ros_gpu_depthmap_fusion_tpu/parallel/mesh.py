@@ -1,17 +1,20 @@
 """Device mesh construction.
 
 The reference is single-process/single-GPU (SURVEY.md §2.7) — the only
-parallelism it has is SIMT dispatch + OpenMP. The TPU framework's scaling
-axes (per the north star) are:
+parallelism it has is SIMT dispatch + OpenMP. This framework's scaling
+axes are:
 
 - ``stream``: data parallelism over depth cameras / lidar streams — each
   device ingests and unprojects its own subset of sensors.
-- ``space``:  spatial tensor parallelism over the voxel grid — the historic
-  occupancy grid is block-partitioned along its linear cell index, so grids
-  much larger than one chip's HBM scale across a slice/pod.
+- ``space``:  spatial partitioning of the voxel grid — the historic
+  occupancy grid is block-partitioned along its linear cell index, so a
+  grid larger than one card's memory spreads over the cards.
 
-Collectives ride ICI inside a slice (``jax.lax.pmax/psum`` over ``stream``)
-and DCN across hosts; within ``shard_map`` everything is explicit.
+The target is up to four NVLink-connected GPUs of one host. Every card
+reaches every other at the same rate, so the mesh shape follows the
+algorithm alone — (stream 4, space 1) or (2, 2) for an 8-camera rig. The
+collectives (``psum_scatter`` and ``pmax`` inside ``shard_map``) go to
+NCCL.
 """
 
 from __future__ import annotations

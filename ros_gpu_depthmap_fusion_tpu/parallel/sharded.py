@@ -46,8 +46,8 @@ from ros_gpu_depthmap_fusion_tpu.core.grid import VoxelGrid
 from ros_gpu_depthmap_fusion_tpu.ops.depth_codec import (
     EncodedDepth, decode_depth)
 from ros_gpu_depthmap_fusion_tpu.ops.unproject import unproject_depthmaps
-from ros_gpu_depthmap_fusion_tpu.ops.pallas.flying_pixels import (
-    filter_flying_pixels_auto as filter_flying_pixels)
+from ros_gpu_depthmap_fusion_tpu.ops.flying_pixels import (
+    filter_flying_pixels)
 from ros_gpu_depthmap_fusion_tpu.ops.stencil import filter_point_sequence
 from ros_gpu_depthmap_fusion_tpu.ops.mask_ops import crop_points, compact
 from ros_gpu_depthmap_fusion_tpu.ops.voxel import (
@@ -327,10 +327,9 @@ def build_sharded_fusion_step(cfg: FusionConfig, grid: VoxelGrid,
         blk_ids = jnp.arange(block, dtype=jnp.int32) + space_id * block
         if cfg.voxel_enable_average:
             # sort-based per-shard partial sums (the packed 10/10/12
-            # quantized path); the full-grid colliding at[].add the
-            # single-chip measurements condemn (~165 ms serialized loop on
-            # v5e, ops/voxelize.py:58-63) is replaced by one unique-index
-            # scatter of <= partials_cap compacted rows. Integer partial
+            # quantized path); instead of a full-grid colliding at[].add,
+            # one unique-index scatter of <= partials_cap compacted rows
+            # (deterministic: no float atomics). Integer partial
             # sums commute, so psum over streams reproduces the
             # single-device packed means bit-for-bit.
             partials_cap = min(local_cap, padded)

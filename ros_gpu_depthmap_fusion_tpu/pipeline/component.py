@@ -12,7 +12,7 @@ replaced by plain callables:
   input rate from processing rate (cpp:74-90, 1202-1210).
 - live reconfig — :meth:`set_flying_pixel_config` mirrors the reference's
   three ``in/Config/FilterFlyingPixels/*`` topics (cpp:970-990). Changed
-  values re-jit the step lazily (they are trace-time constants on TPU).
+  values re-jit the step lazily (they are trace-time constants).
 - publishers — ``on_points`` / ``on_mapping`` callables replace
   ``out/Points`` / ``out/Viz`` advertising (cpp:1197-1200).
 """

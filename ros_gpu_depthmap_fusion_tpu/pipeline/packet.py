@@ -368,11 +368,10 @@ def unpack_packet(packet: jnp.ndarray, layout: PacketLayout,
     if lo.lidar_delta:
         # delta-coded lidar staging (config comment in core/config.py):
         # one u16/point of 3x4-bit zigzag deltas + per-seq raw firsts +
-        # full-range delta exceptions. Gather-free reconstruction:
-        # shift-unpack, exception scatter, two-level MXU cumsum (exact:
-        # |G| <= seq_cap * 65535 < 2^24), one-hot rebase per sequence.
-        from ros_gpu_depthmap_fusion_tpu.ops.depth_codec import (
-            _row_cumsum)
+        # full-range delta exceptions. Reconstruction: shift-unpack,
+        # exception scatter, two-level integer cumsum, one-hot rebase per
+        # sequence at HIGHEST precision (exact: |G| <= seq_cap * 65535
+        # < 2^24).
         HI = jax.lax.Precision.HIGHEST
         P, S = lo.stage_cap, lo.seq_cap
         nw = (P + 1) // 2
@@ -395,7 +394,7 @@ def unpack_packet(packet: jnp.ndarray, layout: PacketLayout,
         dpad = jnp.zeros((m * 128, 3), jnp.int32).at[:P].set(delta)
         rows2 = dpad.reshape(m, 128, 3).transpose(0, 2, 1) \
             .reshape(m * 3, 128)
-        rc = _row_cumsum(rows2).reshape(m, 3, 128)
+        rc = jnp.cumsum(rows2, axis=-1).reshape(m, 3, 128)
         row_tot = rc[:, :, -1]
         row_off = jnp.cumsum(row_tot, axis=0) - row_tot
         big_g = (rc + row_off[:, :, None]).transpose(0, 2, 1) \

@@ -1,4 +1,4 @@
-"""ORB-style feature detection, description and matching — TPU-native.
+"""ORB-style feature detection, description and matching on device.
 
 No reference analog (the reference fuses with externally-supplied poses);
 this implements the north-star SLAM frontend: FAST corners with

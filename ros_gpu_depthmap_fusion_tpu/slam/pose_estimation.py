@@ -3,7 +3,7 @@
 RGB-D gives metric 3-D points per feature, so relative pose is a 3D-3D
 alignment problem: Kabsch/Umeyama closed-form SVD alignment wrapped in a
 fixed-iteration, fully vectorized RANSAC (vmapped hypotheses — no
-data-dependent control flow, TPU-friendly), followed by an all-inlier
+data-dependent control flow), followed by an all-inlier
 refinement.
 """
 
@@ -20,18 +20,12 @@ def kabsch(src: jnp.ndarray, dst: jnp.ndarray,
            weights: jnp.ndarray) -> jnp.ndarray:
     """Weighted rigid alignment: returns T (4x4) with dst ~= T @ src.
 
-    Traced under float32 matmul precision: TPU's default bf16 matmuls
-    put ~0.4% relative error into the 3x3 covariance and the residual
-    projections — per-frame-pair pose errors at the mm-cm level that
-    looked harmless in odometry (random-walk, full-run ATE 6.4 cm) but
-    poisoned every BA window the frontend built: landmark anchors and
-    observations disagreed at the decimetre level (window prior chi2
-    0.3-4.2 on TPU vs 0.09-0.27 on CPU with the same code), and BA
-    "corrections" of 0.1-0.8 m drove the full-scale run to 74 cm ATE.
-    Replaying TPU-captured windows through the CPU solver reproduced
-    the same corrections, pinning the fault in the DATA, not the solver
-    (benchmarks/r5_ba_corrections.py + r5_ba_replay.py; round-4 had
-    fixed the solvers' precision but not the frontend's).
+    Traced under float32 matmul precision: reduced-precision matmuls
+    (bf16, or TF32 on an H100) put ~0.4% relative error into the 3x3
+    covariance and the residual projections — per-frame-pair pose errors
+    at the mm-cm level that poison every BA window the frontend builds
+    (landmark anchors and observations disagree at the decimetre level
+    and BA "corrects" by 0.1-0.8 m).
 
     Standard Kabsch/Umeyama via 3x3 SVD with reflection fix.
     """

@@ -39,9 +39,9 @@ def optimize(graph: PoseGraph, iterations: int = 10,
              damping: float = 1e-6) -> Tuple[PoseGraph, jnp.ndarray]:
     """Gauss-Newton with pose 0 gauge-fixed. Returns (graph', chi2[iters]).
 
-    Traced under float32 matmul precision — TPU's default bf16 matmuls
-    wreck Gauss-Newton linear algebra (see ba.solve_window); no-op on
-    CPU."""
+    Traced under float32 matmul precision — reduced-precision matmuls
+    (TF32 on an H100) wreck Gauss-Newton linear algebra (see
+    ba.solve_window); no-op on CPU."""
     n = graph.poses.shape[0]
 
     def residual_jac(ti, tj, z):

@@ -12,7 +12,7 @@ SURVEY.md §2.9):
 - transform: ``insertSelectedPointSequence`` + ``transformPointSequence``
              (cpp:1509-1581)
 
-Design notes (TPU-first):
+Design notes:
 - All arrays have static capacity; live extents are int32 scalars. Overflow
   is explicit: inserts that do not fit are dropped and reported (the
   reference silently grew SSBOs; its own GPU path hard-discards above 100k
@@ -23,7 +23,7 @@ Design notes (TPU-first):
   clamp at insert).
 - Timestamps are (sec, nsec) int32 pairs compared lexicographically
   (compareTime parity) — no 64-bit integers, so the hot path stays in
-  TPU-native 32-bit lanes. Expiry/selection counts are O(S_cap) masked
+  32-bit arithmetic. Expiry/selection counts are O(S_cap) masked
   reductions instead of a host scan + download.
 """
 
@@ -73,10 +73,8 @@ class RollBuffer(NamedTuple):
 
 def _shift_rows(x: jnp.ndarray, shift, fill_value=0) -> jnp.ndarray:
     """``x[i] = x[i + shift]`` with ``fill_value`` beyond the end —
-    the gather-free form of ``jnp.take(x, iota + shift, mode="fill")``.
-    On TPU a take with contiguous iota+scalar indices lowers to a general
-    gather (~60 ms/M rows via the scatter/gather engine, CLAUDE.md); a
-    pad + ``dynamic_slice`` is a contiguous copy. ``shift`` must be in
+    the gather-free form of ``jnp.take(x, iota + shift, mode="fill")``:
+    a pad + ``dynamic_slice`` is a contiguous copy. ``shift`` must be in
     [0, len(x)]."""
     pad_shape = (x.shape[0],) + x.shape[1:]
     if fill_value is False:

@@ -3,7 +3,7 @@
 The reference has no persistence at all — restart is a cold start
 (SURVEY.md §5: "Checkpoint/resume: none"). Here the engine's device state
 (rollbuffer + historic occupancy + frame index) and the SLAM session
-(keyframe poses, landmarks, trajectory) save/restore via orbax, so a
+(keyframe poses, landmarks, trajectory) save/restore as ``.npz`` files, so a
 mapping process survives restarts with its decayed occupancy history and
 map intact.
 """
@@ -11,16 +11,9 @@ map intact.
 from __future__ import annotations
 
 import os
-from typing import Optional
 
 import jax
 import numpy as np
-
-try:
-    import orbax.checkpoint as ocp
-    _HAVE_ORBAX = True
-except Exception:  # pragma: no cover - orbax is in the image
-    _HAVE_ORBAX = False
 
 
 def _np_tree(tree):
@@ -28,27 +21,18 @@ def _np_tree(tree):
 
 
 def save_engine_state(path: str, state) -> None:
-    """Persist an EngineState pytree (any platform)."""
+    """Persist an EngineState pytree as one ``state.npz`` of its leaves
+    (readable on any platform)."""
     path = os.path.abspath(path)
-    if _HAVE_ORBAX:
-        ckpt = ocp.StandardCheckpointer()
-        ckpt.save(path, _np_tree(state), force=True)
-        ckpt.wait_until_finished()
-    else:
-        os.makedirs(path, exist_ok=True)
-        flat, _ = jax.tree.flatten(_np_tree(state))
-        np.savez(os.path.join(path, "state.npz"),
-                 **{f"leaf_{i}": leaf for i, leaf in enumerate(flat)})
+    os.makedirs(path, exist_ok=True)
+    flat, _ = jax.tree.flatten(_np_tree(state))
+    np.savez(os.path.join(path, "state.npz"),
+             **{f"leaf_{i}": leaf for i, leaf in enumerate(flat)})
 
 
 def restore_engine_state(path: str, template):
     """Restore into the structure of ``template`` (an EngineState)."""
     path = os.path.abspath(path)
-    if _HAVE_ORBAX:
-        ckpt = ocp.StandardCheckpointer()
-        restored = ckpt.restore(path, _np_tree(template))
-        return jax.tree.map(lambda t, r: jax.numpy.asarray(
-            r, dtype=t.dtype), template, restored)
     data = np.load(os.path.join(path, "state.npz"))
     flat, treedef = jax.tree.flatten(template)
     leaves = [jax.numpy.asarray(data[f"leaf_{i}"], dtype=flat[i].dtype)

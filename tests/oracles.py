@@ -1,7 +1,7 @@
 """NumPy golden implementations of the reference GLSL kernel semantics.
 
 These follow the shader code paths literally (scalar loops, same branch
-structure) so the vectorized TPU ops can be validated against them. Each
+structure) so the vectorized device ops can be validated against them. Each
 function cites the shader it mirrors. They are test-only and intentionally
 slow.
 """
@@ -175,3 +175,28 @@ def occupancy_update_oracle(historic: np.ndarray, fresh: np.ndarray,
     (gpu_depthmap_fusion.cpp:1796-1812)."""
     aged = np.maximum(historic.astype(np.int64) - 1, 0)
     return np.maximum(aged, fresh.astype(np.int64) * lifetime)
+
+
+# ---------------------------------------------------------------------------
+# Composed frame oracle: unproject -> flying pixels -> crop -> voxel coords
+# -> voxelize average -> occupancy update, built only from the functions
+# above (per-camera unproject/filter calls stay with the caller, which may
+# run cameras in parallel processes).
+# ---------------------------------------------------------------------------
+
+def points_oracle(world, crop, mask, crop_min, crop_max, voxel_min,
+                  voxel_max, voxel_size):
+    """Crop + voxel coords for points already in the world and crop
+    frames. Returns (mask, cell ids)."""
+    m = crop_oracle(crop, mask, crop_min, crop_max)
+    ids, _ = voxel_coords_oracle(world, voxel_min, voxel_max, voxel_size)
+    return m, ids
+
+
+def fuse_cells_oracle(world, cell_ids, mask, num_cells, historic, lifetime):
+    """Voxelize average over all sections, then the occupancy update.
+    Returns (means ``[K, 4]``, cells ``[K]`` ascending, new historic)."""
+    means, cells = voxelize_average_oracle(world, cell_ids, mask)
+    fresh = np.zeros(num_cells, np.int64)
+    fresh[cells] = 1
+    return means, cells, occupancy_update_oracle(historic, fresh, lifetime)

@@ -465,3 +465,60 @@ def test_engine_p4_pipelined_matches_sync():
         np.testing.assert_array_equal(np.asarray(a.occupancy_u8),
                                       np.asarray(b.occupancy_u8))
         assert int(a.raw_count) == int(b.raw_count)
+
+
+def _p4_budget_scene(rng, c, h, w, budget):
+    """prev/curr quantized series where row 0 fills the literal budget
+    exactly, row 1 spills past it, row 2 is unchanged and the rest are
+    random; deltas span the whole in-stream range (+-7, new holes) so
+    literals carry high nibbles, plus wide deltas and revivals for the
+    exception list."""
+    gw = -(-w // 4)
+    prev = rng.integers(100, 4000, (c, h, w)).astype(np.int64)
+    prev[rng.random((c, h, w)) < 0.03] = 0
+    curr = prev.copy()
+    gcap = budget // 2
+    for ci in range(c):
+        for r in range(h):
+            if r == 2:
+                continue
+            n = {0: gcap, 1: min(gw, gcap + 3)}.get(r, rng.integers(0, gw))
+            for g in rng.choice(gw, size=n, replace=False):
+                x = 4 * g + rng.integers(0, 4)
+                if x >= w:
+                    x = w - 1
+                if prev[ci, r, x] == 0:
+                    curr[ci, r, x] = rng.integers(100, 4000)   # revival
+                elif rng.random() < 0.1:
+                    curr[ci, r, x] = 0                          # new hole
+                elif rng.random() < 0.1:
+                    curr[ci, r, x] += 50                        # wide
+                else:
+                    curr[ci, r, x] += rng.choice([-7, -6, 5, 7])
+    return prev.astype(np.uint16), curr.astype(np.uint16)
+
+
+@pytest.mark.parametrize("budget,shape", [
+    (4, (1, 3, 41)),      # tiny budget: every busy row spills
+    (8, (2, 5, 130)),     # two flag words per row, width not /4
+    (48, (1, 4, 200)),    # the bench budget
+])
+def test_p4_decode_matches_reference_reconstruction(budget, shape):
+    """The device decode equals the reference encoder's reconstruction
+    bit for bit, including rows that fill the literal budget exactly and
+    rows whose groups spill past it (the literal lookup is an integer
+    gather, exact on every backend)."""
+    c, h, w = shape
+    rng = np.random.default_rng(budget)
+    prev, curr = _p4_budget_scene(rng, c, h, w, budget)
+    res = DC.encode_depth_p4_reference(curr, prev, budget, 4096, 0, 0)
+    assert res is not None
+    enc, cq = res
+    np.testing.assert_array_equal(cq, curr)
+    rows_full = np.unpackbits(enc["flags"].view(np.uint8), axis=1).sum(1)
+    assert rows_full.max() == budget // 2          # a full-budget row
+    assert len(enc["exc_idx"]) > 0                  # spills + wide deltas
+    e = _p4_to_device(enc, 4096)
+    dd, dq = DC.decode_depth_p4(e, jnp.asarray(prev), h, w, budget, 0)
+    np.testing.assert_array_equal(np.asarray(dq), curr)
+    np.testing.assert_array_equal(np.asarray(dd), curr)

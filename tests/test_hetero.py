@@ -7,7 +7,8 @@ embedded top-left in a zero-padded buffer of the larger shape produces
 the SAME unprojected points (zero depth = hole; pixel coords are
 absolute), so a padded homogeneous engine is an exact reference for the
 heterogeneous engine (integer partial sums commute, so section ordering
-cannot change voxelized results).
+cannot change voxelized results); packed voxelize over the sections is
+also checked against the NumPy oracle.
 """
 import numpy as np
 import jax.numpy as jnp
@@ -18,6 +19,8 @@ from ros_gpu_depthmap_fusion_tpu.core.camera import PinholeIntrinsics
 from ros_gpu_depthmap_fusion_tpu.core.grid import VoxelGrid
 from ros_gpu_depthmap_fusion_tpu.pipeline.engine import FusionEngine
 from ros_gpu_depthmap_fusion_tpu.utils import native
+
+import oracles
 
 
 H0, W0 = 48, 64
@@ -135,71 +138,53 @@ def test_per_stream_depth_scale_homogeneous():
     assert set(zs) == {0.5, 1.0}, zs
 
 
-def test_voxelize_domains_matches_concat():
-    """Splitting the input into domains is bit-identical to one domain
-    (interpret-mode kernel; integer partial sums commute)."""
+def _assert_matches_voxel_oracle(pts, ids, mask, out_pts, count, grid):
+    """Packed means against ``voxelize_average_oracle`` on the same cell
+    ids: identical cell set, means within the packed bound (cell/2048 per
+    axis) plus f32 slack."""
+    ref_means, ref_cells = oracles.voxelize_average_oracle(pts, ids, mask)
+    assert count == len(ref_cells)
+    got = np.asarray(out_pts)[:count]
+    cs = np.asarray(grid.cell_size)
+    u = np.floor((got[:, :3] - np.asarray(grid.lower)) / cs).astype(int)
+    gs = grid.grid_size
+    np.testing.assert_array_equal(
+        u[:, 0] + u[:, 1] * gs[0] + u[:, 2] * gs[0] * gs[1], ref_cells)
+    assert np.all(np.abs(got[:, :3] - ref_means[:, :3]) <= cs / 2048 + 1e-6)
+
+
+@pytest.mark.parametrize("rig", ["lidar_tail", "heterogeneous"])
+def test_voxelize_packed_matches_oracle(rig):
+    """Packed voxelize over the engine's section layouts — a raster depth
+    section with a raster-incoherent lidar tail, and a mixed-resolution
+    rig's per-group sections — against the NumPy oracle."""
     from ros_gpu_depthmap_fusion_tpu.ops.voxelize import (
-        voxelize_average_rle, voxelize_average_rle_domains)
-    cfg = FusionConfig(num_depth_streams=1, **BOX)
-    grid = VoxelGrid.from_config(cfg)
+        voxelize_average_packed)
     rng = np.random.default_rng(11)
-    n1, n2 = 3000, 1700
-    pts = np.concatenate([
-        rng.uniform(-3, 3, (n1 + n2, 2)),
-        rng.uniform(0, 2.5, (n1 + n2, 1)),
-        np.ones((n1 + n2, 1))], axis=1).astype(np.float32)
-    mask = rng.random(n1 + n2) > 0.1
+    if rig == "lidar_tail":
+        cfg = FusionConfig(num_depth_streams=1, **BOX)
+        grid = VoxelGrid.from_config(cfg)
+        u, v = np.meshgrid(np.arange(W0), np.arange(H0))
+        depth = np.stack([u * 0.04 - 1.2, v * 0.05 - 1.0,
+                          1.0 + 0.2 * np.sin(u / 7.0)], -1).reshape(-1, 3)
+        lidar = np.stack([rng.uniform(-3, 3, 700), rng.uniform(-3, 3, 700),
+                          rng.uniform(0, 2.5, 700)], -1)
+        xyz = np.concatenate([depth, lidar])
+        mask = rng.random(len(xyz)) > 0.1
+    else:
+        cfg = _cfg_hetero(enable_flyingpixels_filter=False,
+                          emit_raw_points=True, depth_link_codec="none")
+        grid = VoxelGrid.from_config(cfg)
+        d0, d1, tf0, tf1 = _scene(rng)
+        out = _run(FusionEngine(cfg), d0, d1, tf0, tf1, frames=1)
+        xyz = np.asarray(out.raw_points)[: int(out.raw_count), :3]
+        assert len(xyz) > (H0 * W0 + H1 * W1) // 2
+        mask = np.ones(len(xyz), bool)
+    pts = np.concatenate([xyz, np.ones((len(xyz), 1))], 1).astype(np.float32)
     ids = np.asarray(grid.cell_index_clamped(jnp.asarray(pts[:, :3])))
-    one = voxelize_average_rle(
-        jnp.asarray(pts), jnp.asarray(ids), jnp.asarray(mask), grid, 4096,
-        return_occupancy=True, interpret=True, return_partials_count=True)
-    two = voxelize_average_rle_domains(
-        [(jnp.asarray(pts[:n1]), jnp.asarray(ids[:n1]),
-          jnp.asarray(mask[:n1])),
-         (jnp.asarray(pts[n1:]), jnp.asarray(ids[n1:]),
-          jnp.asarray(mask[n1:]))],
-        grid, 4096, return_occupancy=True, interpret=True,
-        return_partials_count=True)
-    assert int(one[1]) == int(two[1])
-    np.testing.assert_array_equal(np.asarray(one[0]), np.asarray(two[0]))
-    np.testing.assert_array_equal(np.asarray(one[2]), np.asarray(two[2]))
-
-
-def test_voxelize_domains_skewed_overflow_observable():
-    """A domain that overflows its own capacity SHARE must report above
-    ``partials_capacity`` even when the summed true run count stays below
-    it (round-4 advisor finding: the summed count silently masked
-    per-domain drops)."""
-    from ros_gpu_depthmap_fusion_tpu.ops.voxelize import (
-        voxelize_average_rle_domains)
-    cfg = FusionConfig(num_depth_streams=1, **BOX)
-    grid = VoxelGrid.from_config(cfg)
-    rng = np.random.default_rng(3)
-    # domain A: 5000 points in mostly-distinct cells -> ~5000 level-1
-    # runs, but its pixel-proportional share of capacity is only
-    # max(4096, 8192*5000/50000) = 4096 -> A overflows its share
-    n_a, n_b = 5000, 45000
-    pts_a = np.concatenate([
-        rng.uniform(-3, 3, (n_a, 2)), rng.uniform(0, 2.5, (n_a, 1)),
-        np.ones((n_a, 1))], axis=1).astype(np.float32)
-    # domain B: one dense spot -> few runs (force_break=128 splits it
-    # into ~n_b/128 rows, well inside B's share)
-    pts_b = np.tile(np.array([[0.05, 0.05, 1.0, 1.0]], np.float32),
-                    (n_b, 1))
-    ids_a = np.asarray(grid.cell_index_clamped(jnp.asarray(pts_a[:, :3])))
-    ids_b = np.asarray(grid.cell_index_clamped(jnp.asarray(pts_b[:, :3])))
-    cap = 8192
-    res = voxelize_average_rle_domains(
-        [(jnp.asarray(pts_a), jnp.asarray(ids_a),
-          jnp.ones(n_a, bool)),
-         (jnp.asarray(pts_b), jnp.asarray(ids_b),
-          jnp.ones(n_b, bool))],
-        grid, 4096, partials_capacity=cap, interpret=True,
-        return_partials_count=True)
-    reported = int(res[-1])
-    # summed true counts stay under the capacity (the old observable
-    # would NOT fire) but the scaled per-domain report must
-    assert reported > cap, reported
+    out_pts, count = voxelize_average_packed(
+        jnp.asarray(pts), jnp.asarray(ids), jnp.asarray(mask), grid, 4096)
+    _assert_matches_voxel_oracle(pts, ids, mask, out_pts, int(count), grid)
 
 
 def test_hetero_pipelined_matches_sync():

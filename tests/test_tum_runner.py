@@ -51,8 +51,7 @@ def test_tum_hard_sequence_ate_under_5cm(tmp_path):
     difficulty: aggressive loop-closed orbit, quadratic depth noise,
     range-growing dropout — see write_hard_synthetic_tum_sequence). CI
     runs a reduced-size cut (320x240, 40 frames at the full-sequence
-    angular rate); the committed full-scale number (640x480 x 150:
-    3.26 cm) is in RESULTS.md §1."""
+    angular rate)."""
     from ros_gpu_depthmap_fusion_tpu.pipeline.tum_runner import (
         write_hard_synthetic_tum_sequence)
     root = str(tmp_path / "hard")
